@@ -1,7 +1,7 @@
-// gadev: native runtime engine for genomeassembler_dev_tpu.
+// gadev: native runtime engine for genomeassembler_dev.
 //
 // Hosts the parts of the pipeline that are branchy, string-heavy and
-// small-data — a poor fit for the TPU's vector units — behind a C ABI
+// small-data — a poor fit for the accelerator — behind a C ABI
 // consumed via ctypes:
 //
 //   * the per-ordering greedy contig merge fixpoint
@@ -11,7 +11,7 @@
 //   * ordering generation with std::mt19937 + std::shuffle, bit-identical to
 //     the reference's ensemble by construction (same libstdc++),
 //   * a single-threaded contig builder + k-mer counter used as the
-//     "single-core C++" baseline that bench.py compares the TPU path against.
+//     "single-core C++" baseline that bench.py compares the device path against.
 //
 // This file is new code written from the executable spec; it shares only the
 // published algorithm with the reference.

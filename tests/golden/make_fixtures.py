@@ -51,7 +51,7 @@ def build_harness() -> None:
 def table_lines() -> tuple[list[str], "np.ndarray"]:
     """All 69,904 k-mer strings in canonical combined order + normalised
     probs from the repo asset (byte-equal to the reference CSVs)."""
-    from genomeassembler_dev_tpu.core.querytable import load_default_query_table
+    from genomeassembler_dev.core.querytable import load_default_query_table
 
     table = load_default_query_table()
     kmers = []
@@ -68,9 +68,9 @@ def simulate_read_set(seq_len: int, read_len: int, seed: int,
     synthetic segment with planted repeats (branch nodes in the dBG). The
     golden gate is 'given identical read sets' — these reads are recorded in
     the fixture and replayed on our side."""
-    from genomeassembler_dev_tpu.core.encoding import encode_dna, kmer_codes_np
-    from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-    from genomeassembler_dev_tpu.sim.segments import synthetic_genome
+    from genomeassembler_dev.core.encoding import encode_dna, kmer_codes_np
+    from genomeassembler_dev.core.querytable import load_default_query_table
+    from genomeassembler_dev.sim.segments import synthetic_genome
 
     rng = np.random.default_rng(seed)
     seg = list(synthetic_genome(seed, seq_len))

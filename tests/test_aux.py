@@ -5,16 +5,16 @@ import os
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu.core.encoding import encode_dna
-from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu.pipeline.experiments import (
+from genomeassembler_dev.core.encoding import encode_dna
+from genomeassembler_dev.core.querytable import load_default_query_table
+from genomeassembler_dev.pipeline.config import ExperimentConfig
+from genomeassembler_dev.pipeline.experiments import (
     run_own_study,
     run_velvet_study,
     study_statistics,
 )
-from genomeassembler_dev_tpu.sim.segments import synthetic_genome, synthetic_segment_store
-from genomeassembler_dev_tpu.utils.timers import StageTimer
+from genomeassembler_dev.sim.segments import synthetic_genome, synthetic_segment_store
+from genomeassembler_dev.utils.timers import StageTimer
 
 
 @pytest.fixture(scope="module")
@@ -64,8 +64,8 @@ def test_plots(tmp_path, table):
     pytest.importorskip("matplotlib")
     import jax
 
-    from genomeassembler_dev_tpu.sim.reads import generate_reads
-    from genomeassembler_dev_tpu.utils import plots
+    from genomeassembler_dev.sim.reads import generate_reads
+    from genomeassembler_dev.utils import plots
 
     g = synthetic_genome(1, 250)
     rs = generate_reads(jax.random.key(0), encode_dna(g), table, 12, 10.0)
@@ -86,7 +86,7 @@ def test_plots(tmp_path, table):
 
 @pytest.mark.slow
 def test_scaling_harness(table):
-    from genomeassembler_dev_tpu.parallel.scaling import measure_scaling
+    from genomeassembler_dev.parallel.scaling import measure_scaling
 
     B, L = 8, 200
     genomes = np.stack([encode_dna(synthetic_genome(i, L)) for i in range(B)])
@@ -103,3 +103,27 @@ def test_stage_timer(capsys):
     out = capsys.readouterr().out
     assert "Doing things" in out and "DONE!" in out
     assert "Doing things" in t.times
+
+
+def test_plots_without_matplotlib_fail_clearly(tmp_path, monkeypatch):
+    import sys
+
+    from genomeassembler_dev.utils import plots
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import fails
+    with pytest.raises(RuntimeError, match="need matplotlib"):
+        plots.plot_probability_track(np.zeros(10), str(tmp_path / "t.png"))
+
+
+def test_main_path_does_not_import_matplotlib():
+    import subprocess
+    import sys
+
+    code = ("import sys, genomeassembler_dev.pipeline.batch_runner, "
+            "genomeassembler_dev.pipeline.velvet, genomeassembler_dev.cli; "
+            "print('matplotlib' in sys.modules)")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "False"

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-from genomeassembler_dev_tpu.pipeline.assembler import Assembler
-from genomeassembler_dev_tpu.pipeline.batch_runner import run_experiments_batched
-from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu.sim.segments import synthetic_segment_store
+from genomeassembler_dev.core.querytable import load_default_query_table
+from genomeassembler_dev.pipeline.assembler import Assembler
+from genomeassembler_dev.pipeline.batch_runner import run_experiments_batched
+from genomeassembler_dev.pipeline.config import ExperimentConfig
+from genomeassembler_dev.sim.segments import synthetic_segment_store
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +46,7 @@ def test_mesh_sharded_matches_single_device(table):
     (5 segments do not divide the 8-way seg axis)."""
     import jax
 
-    from genomeassembler_dev_tpu.parallel.mesh import make_mesh
+    from genomeassembler_dev.parallel.mesh import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -84,7 +84,7 @@ def test_mesh_read_sharded_matches_single_device(table):
     exercised only by unit lanes, never by the study runner)."""
     import jax
 
-    from genomeassembler_dev_tpu.parallel.mesh import make_mesh
+    from genomeassembler_dev.parallel.mesh import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")

@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genomeassembler_dev_tpu.core.encoding import encode_dna, kmer_code
-from genomeassembler_dev_tpu.dbg.assemble import dedup_contigs
-from genomeassembler_dev_tpu.dbg.biased import biased_contigs_dense, biased_successor
-from genomeassembler_dev_tpu.dbg.dense import build_dbg_dense
-from genomeassembler_dev_tpu.ops.windows import kmer_window_codes
+from genomeassembler_dev.core.encoding import encode_dna, kmer_code
+from genomeassembler_dev.dbg.assemble import dedup_contigs
+from genomeassembler_dev.dbg.biased import biased_contigs_dense, biased_successor
+from genomeassembler_dev.dbg.dense import build_dbg_dense
+from genomeassembler_dev.ops.windows import kmer_window_codes
 
 
 def contigs_of(buf, lens, wvalid, ovf):
@@ -129,7 +129,7 @@ def greedy_oracle(reads, k, probs, max_len):
 
 class TestBiasedSparseAndBigK:
     def _reads(self, seed, k):
-        from genomeassembler_dev_tpu.sim.segments import plant_repeats, synthetic_genome
+        from genomeassembler_dev.sim.segments import plant_repeats, synthetic_genome
 
         rng = np.random.default_rng(seed)
         g = plant_repeats(synthetic_genome(seed, 400), rng,
@@ -142,7 +142,7 @@ class TestBiasedSparseAndBigK:
 
     @pytest.mark.parametrize("seed,k", [(0, 9), (1, 10)])
     def test_sparse_matches_dense(self, seed, k):
-        from genomeassembler_dev_tpu.dbg.biased import biased_contigs_sparse
+        from genomeassembler_dev.dbg.biased import biased_contigs_sparse
 
         reads = self._reads(seed, k)
         codes = jnp.asarray(np.stack([encode_dna(r) for r in reads]))
@@ -157,7 +157,7 @@ class TestBiasedSparseAndBigK:
 
     @pytest.mark.parametrize("seed,k", [(2, 13), (3, 15)])
     def test_sparse_matches_oracle(self, seed, k):
-        from genomeassembler_dev_tpu.dbg.biased import biased_contigs_sparse
+        from genomeassembler_dev.dbg.biased import biased_contigs_sparse
 
         reads = self._reads(seed, k)
         codes = jnp.asarray(np.stack([encode_dna(r) for r in reads]))
@@ -169,8 +169,8 @@ class TestBiasedSparseAndBigK:
 
     @pytest.mark.parametrize("seed,k", [(4, 17), (5, 21)])
     def test_big_k_matches_oracle(self, seed, k):
-        from genomeassembler_dev_tpu.dbg.big_k import kmer_pair_codes
-        from genomeassembler_dev_tpu.dbg.biased import biased_contigs_big_k
+        from genomeassembler_dev.dbg.big_k import kmer_pair_codes
+        from genomeassembler_dev.dbg.biased import biased_contigs_big_k
 
         reads = self._reads(seed, k)
         codes = jnp.asarray(np.stack([encode_dna(r) for r in reads]))
@@ -184,10 +184,10 @@ class TestBiasedSparseAndBigK:
 
 class TestBiasedPipeline:
     def test_full_experiment_with_biased_traversal(self):
-        from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-        from genomeassembler_dev_tpu.pipeline.assembler import Assembler
-        from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-        from genomeassembler_dev_tpu.sim.segments import synthetic_genome
+        from genomeassembler_dev.core.querytable import load_default_query_table
+        from genomeassembler_dev.pipeline.assembler import Assembler
+        from genomeassembler_dev.pipeline.config import ExperimentConfig
+        from genomeassembler_dev.sim.segments import synthetic_genome
 
         cfg = ExperimentConfig(seq_len=300, read_len=12, coverage_target=15.0,
                                kmer=8, dbg_kmer=9, seed=1234, n_orderings=100,
@@ -202,12 +202,12 @@ class TestBiasedPipeline:
         the deduped, canonically-sorted walks truncated to the longest
         biased_max_solutions — the ordering-ensemble merge (a fragment
         joiner) is skipped (at 50 kb it OOM'd combinatorially)."""
-        from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-        from genomeassembler_dev_tpu.pipeline.assembler import Assembler
-        from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-        from genomeassembler_dev_tpu.sim.segments import (
+        from genomeassembler_dev.core.querytable import load_default_query_table
+        from genomeassembler_dev.pipeline.assembler import Assembler
+        from genomeassembler_dev.pipeline.config import ExperimentConfig
+        from genomeassembler_dev.sim.segments import (
             plant_repeats, synthetic_genome)
-        from genomeassembler_dev_tpu.utils.timers import StageTimer
+        from genomeassembler_dev.utils.timers import StageTimer
 
         cfg = ExperimentConfig(seq_len=400, read_len=12, coverage_target=20.0,
                                kmer=8, dbg_kmer=9, seed=1234,
@@ -217,8 +217,8 @@ class TestBiasedPipeline:
                           n_events=4)
         import jax
 
-        from genomeassembler_dev_tpu.core.encoding import encode_dna
-        from genomeassembler_dev_tpu.sim.reads import generate_reads
+        from genomeassembler_dev.core.encoding import encode_dna
+        from genomeassembler_dev.sim.reads import generate_reads
 
         rs = generate_reads(jax.random.key(cfg.seed), encode_dna(g), asm.table,
                             cfg.read_len, cfg.coverage_target)

@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genomeassembler_dev_tpu.core.encoding import encode_dna
-from genomeassembler_dev_tpu.dbg.assemble import dedup_contigs
-from genomeassembler_dev_tpu.dbg.big_k import contigs_big_k, kmer_pair_codes
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.core.encoding import encode_dna
+from genomeassembler_dev.dbg.assemble import dedup_contigs
+from genomeassembler_dev.dbg.big_k import contigs_big_k, kmer_pair_codes
+from genomeassembler_dev.spec import reference_semantics as spec
 
 
 def rand_dna(rng, n):
@@ -63,10 +63,10 @@ class TestEndToEndBigK:
         """BASELINE config 1 shape: 150bp-class reads, k=31 assembly +
         breakage score, on a small segment."""
         import jax
-        from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-        from genomeassembler_dev_tpu.pipeline.assembler import Assembler
-        from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-        from genomeassembler_dev_tpu.sim.segments import synthetic_genome
+        from genomeassembler_dev.core.querytable import load_default_query_table
+        from genomeassembler_dev.pipeline.assembler import Assembler
+        from genomeassembler_dev.pipeline.config import ExperimentConfig
+        from genomeassembler_dev.sim.segments import synthetic_genome
 
         cfg = ExperimentConfig(seq_len=500, read_len=150, coverage_target=30.0,
                                kmer=8, dbg_kmer=31, seed=1234, n_orderings=100)
@@ -80,3 +80,53 @@ class TestEndToEndBigK:
         best = int(np.argmax(lens))
         # the longest solution is a near-exact (sub)string of the truth
         assert res.columns["lev_dist_vs_true"][best] <= 500 - lens.max() + 5
+
+
+class TestReExecution:
+    """Jitted programs must not close over module-level jax Arrays: once the
+    sparse walk had traced them, later programs got them as an extra hoisted
+    parameter that jit's C++ dispatch path did not pass on re-execution
+    ("supplied 3 buffers but compiled program expected 4")."""
+
+    def test_big_k_runs_twice_after_the_sparse_path(self, tmp_path):
+        # a fresh process: which programs see the constants depends on the
+        # import order, so the scenario is replayed from a clean start
+        import os
+        import subprocess
+        import sys
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        code = """
+import numpy as np
+from genomeassembler_dev.core.encoding import encode_dna
+from genomeassembler_dev.dbg.assemble import contigs_from_read_codes
+from genomeassembler_dev.sim.segments import synthetic_genome
+g = synthetic_genome(2, 300)
+codes = np.stack([encode_dna(g[i:i + 40]) for i in range(0, 260, 5)])
+ok = np.ones(len(codes), bool)
+contigs_from_read_codes(codes, ok, 13, 600)
+a = contigs_from_read_codes(codes, ok, 21, 600)
+b = contigs_from_read_codes(codes, ok, 21, 600)
+assert a == b and len(a) >= 1
+print("OK")
+"""
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo,
+                   JAX_COMPILATION_CACHE_DIR=str(tmp_path))
+        r = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-2000:]
+
+    def test_no_module_level_device_arrays(self):
+        import importlib
+        import pkgutil
+
+        import jax
+
+        import genomeassembler_dev as pkg
+
+        found = []
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            mod = importlib.import_module(m.name)
+            found += [f"{m.name}.{k}" for k, v in vars(mod).items()
+                      if isinstance(v, jax.Array)]
+        assert not found, found

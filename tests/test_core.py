@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu.core import encoding as enc
-from genomeassembler_dev_tpu.core import kmers, querytable
+from genomeassembler_dev.core import encoding as enc
+from genomeassembler_dev.core import kmers, querytable
 
 
 class TestEncoding:

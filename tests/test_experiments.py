@@ -6,15 +6,15 @@ import os
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu import cli
-from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu.pipeline.experiments import (
+from genomeassembler_dev import cli
+from genomeassembler_dev.core.querytable import load_default_query_table
+from genomeassembler_dev.pipeline.config import ExperimentConfig
+from genomeassembler_dev.pipeline.experiments import (
     run_gc_study,
     run_kmer_count_study,
     run_own_study,
 )
-from genomeassembler_dev_tpu.sim.segments import synthetic_segment_store
+from genomeassembler_dev.sim.segments import synthetic_segment_store
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ class TestOwnStudy:
                   "lev_dist_vs_true", "stat_test_KS_true"):
             assert c in arows[0], c
         # statistics include the top-5%-vs-rest contrast family
-        from genomeassembler_dev_tpu.pipeline.experiments import study_statistics
+        from genomeassembler_dev.pipeline.experiments import study_statistics
 
         stats = study_statistics(rep.all_path)
         entry = stats["12:9"]
@@ -116,7 +116,7 @@ class TestTopFractionContrast:
         """Matches R's slice_max(prop=.05)/slice_min(prop=.95) split
         (scripts/02_…:221-231): floor-sized groups from opposite ends of the
         ranking, Welch t-test between them."""
-        from genomeassembler_dev_tpu.pipeline.experiments import top_fraction_contrast
+        from genomeassembler_dev.pipeline.experiments import top_fraction_contrast
 
         rng = np.random.default_rng(0)
         v = np.concatenate([rng.normal(0.0, 1.0, 95), rng.normal(10.0, 1.0, 5)])
@@ -129,7 +129,7 @@ class TestTopFractionContrast:
         assert out["lev"]["rest_mean"] > 15.0
 
     def test_nan_and_tiny_groups(self):
-        from genomeassembler_dev_tpu.pipeline.experiments import top_fraction_contrast
+        from genomeassembler_dev.pipeline.experiments import top_fraction_contrast
 
         v = np.array([1.0, np.nan, 2.0, 3.0])
         out = top_fraction_contrast(v, 0.05)
@@ -138,7 +138,7 @@ class TestTopFractionContrast:
 
 class TestVelvetCLI:
     def test_with_contigs_dir(self, tmp_path, capsys):
-        from genomeassembler_dev_tpu.sim.segments import (
+        from genomeassembler_dev.sim.segments import (
             synthetic_segment_store, write_fasta,
         )
 
@@ -167,7 +167,7 @@ class TestVelvetCLI:
         with open(out["all"]) as f:
             arows = list(csv.DictReader(f))
         assert arows and "bp_score_norm_by_break_freqs_true" in arows[0]
-        from genomeassembler_dev_tpu.pipeline.experiments import study_statistics
+        from genomeassembler_dev.pipeline.experiments import study_statistics
 
         stats = study_statistics(out["all"])
         assert "top_fraction" in stats["12:9"]
@@ -177,7 +177,7 @@ class TestConfigValidation:
     def test_invalid_kmer(self):
         import pytest as _pytest
 
-        from genomeassembler_dev_tpu.pipeline.assembler import Assembler
+        from genomeassembler_dev.pipeline.assembler import Assembler
 
         with _pytest.raises(ValueError, match="kmer"):
             Assembler(ExperimentConfig(kmer=5))

@@ -27,11 +27,11 @@ import subprocess
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu.core.encoding import encode_dna, kmer_codes_np
-from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-from genomeassembler_dev_tpu.merge import native
-from genomeassembler_dev_tpu.merge.engine import assemble_solutions
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.core.encoding import encode_dna, kmer_codes_np
+from genomeassembler_dev.core.querytable import load_default_query_table
+from genomeassembler_dev.merge import native
+from genomeassembler_dev.merge.engine import assemble_solutions
+from genomeassembler_dev.spec import reference_semantics as spec
 
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "golden", "fixtures")
 FIXTURES = sorted(f[:-5] for f in os.listdir(FIXTURE_DIR) if f.endswith(".json"))
@@ -122,10 +122,10 @@ class TestOwnGolden:
         """The production (JAX) breakscore against the reference fixture."""
         import jax.numpy as jnp
 
-        from genomeassembler_dev_tpu.pipeline.assembler import (
+        from genomeassembler_dev.pipeline.assembler import (
             pack_strings, pad_reads)
-        from genomeassembler_dev_tpu.score.breakscore import breakscore
-        from genomeassembler_dev_tpu.sim.reads import dedup_reads
+        from genomeassembler_dev.score.breakscore import breakscore
+        from genomeassembler_dev.sim.reads import dedup_reads
 
         fx = load(name)
         ref = fx["reference"]

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu.merge.device import assemble_device
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.merge.device import assemble_device
+from genomeassembler_dev.spec import reference_semantics as spec
 
 
 def rand_dna(rng, n):
@@ -65,17 +65,17 @@ class TestDeviceMerge:
 
 
 class TestCrossoverDispatch:
-    """The measured native/device crossover (studies/merge_xover.log) drives
-    merge.engine's auto backend: device from C=64 at the production 10k
+    """The native/device crossover (measured on the first accelerator)
+    drives merge.engine's auto backend: device from C=64 at the production 10k
     orderings, C=128 at any ordering count; native below."""
 
     def test_preferred_backend_table(self):
-        from genomeassembler_dev_tpu.merge.engine import preferred_backend
+        from genomeassembler_dev.merge.engine import preferred_backend
 
-        # study-typical small contig sets: native wins by 6-25x
+        # study-typical small contig sets: native
         assert preferred_backend(8, 10000, True, True) == "native"
         assert preferred_backend(32, 10000, True, True) == "native"
-        # measured crossover points
+        # crossover points
         assert preferred_backend(64, 10000, True, True) == "device"
         assert preferred_backend(64, 1000, True, True) == "native"
         assert preferred_backend(128, 1000, True, True) == "device"

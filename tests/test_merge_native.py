@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu.merge import engine, native
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.merge import engine, native
+from genomeassembler_dev.spec import reference_semantics as spec
 
 
 def rand_dna(rng, n):
@@ -61,7 +61,7 @@ class TestNativeBaseline:
     def test_count_kmers(self):
         reads = ["ACGTACGT", "TTTTTTTT"]
         counts = native.count_kmers_native(reads, 4)
-        from genomeassembler_dev_tpu.core.encoding import kmer_code
+        from genomeassembler_dev.core.encoding import kmer_code
 
         expect = np.zeros(256, np.int64)
         for r in reads:
@@ -73,7 +73,7 @@ class TestNativeBaseline:
 @needs_native
 class TestNativeBreakscore:
     def test_matches_spec(self):
-        from genomeassembler_dev_tpu.core.querytable import load_default_query_table
+        from genomeassembler_dev.core.querytable import load_default_query_table
 
         table = load_default_query_table()
         rng = np.random.default_rng(5)
@@ -95,7 +95,7 @@ class TestNativeBreakscore:
 def test_short_contig_contract_consistent():
     """Contigs shorter than the overlap k are skipped identically by spec,
     native and device backends (the reference would crash on them)."""
-    from genomeassembler_dev_tpu.merge.device import assemble_device
+    from genomeassembler_dev.merge.device import assemble_device
 
     contigs = sorted({"ACG", "CGTACGGA", "GATTACAAT", "TA"})
     k = 7

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-from genomeassembler_dev_tpu.models import breakage_model as bm
+from genomeassembler_dev.core.querytable import load_default_query_table
+from genomeassembler_dev.models import breakage_model as bm
 
 
 def test_one_hot_features():

@@ -3,8 +3,8 @@
 The rest of the suite exercises multi-DEVICE sharding inside one process
 (8 virtual CPU devices). This lane launches two actual OS processes wired by
 `jax.distributed` over a localhost coordinator — the same code path
-(multihost.initialize -> global_mesh -> shard_map step) a TPU pod runs over
-DCN — and asserts the sharded k-mer count step's global result equals the
+(multihost.initialize -> global_mesh -> shard_map step) a multi-host run
+takes — and asserts the sharded k-mer count step's global result equals the
 single-process run, plus the host_segment_slice artifact-ownership contract
 (lib/DeNovoAssembler.R:280-308 is the per-host artifact unit).
 """
@@ -34,8 +34,8 @@ _WORKER = textwrap.dedent("""
     import numpy as np
     import jax.numpy as jnp
 
-    from genomeassembler_dev_tpu.parallel import multihost
-    from genomeassembler_dev_tpu.parallel.sharding import make_sim_count_step
+    from genomeassembler_dev.parallel import multihost
+    from genomeassembler_dev.parallel.sharding import make_sim_count_step
 
     pid = int(sys.argv[1])
     multihost.initialize(coordinator_address=@COORD@, num_processes=2,
@@ -94,7 +94,7 @@ _STUDY_WORKER = textwrap.dedent("""
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from genomeassembler_dev_tpu.parallel import multihost
+    from genomeassembler_dev.parallel import multihost
 
     pid = int(sys.argv[1])
     workdir = sys.argv[2]
@@ -102,12 +102,12 @@ _STUDY_WORKER = textwrap.dedent("""
                          process_id=pid)
 
     # heavier imports AFTER initialize: some touch the backend at import
-    from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-    from genomeassembler_dev_tpu.parallel.mesh import make_mesh
-    from genomeassembler_dev_tpu.pipeline import results as res_io
-    from genomeassembler_dev_tpu.pipeline.batch_runner import run_experiments_batched
-    from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-    from genomeassembler_dev_tpu.sim.segments import synthetic_segment_store
+    from genomeassembler_dev.core.querytable import load_default_query_table
+    from genomeassembler_dev.parallel.mesh import make_mesh
+    from genomeassembler_dev.pipeline import results as res_io
+    from genomeassembler_dev.pipeline.batch_runner import run_experiments_batched
+    from genomeassembler_dev.pipeline.config import ExperimentConfig
+    from genomeassembler_dev.sim.segments import synthetic_segment_store
 
     # end-to-end study over this host's OWN experiment slice: the reference's
     # per-host unit of work and restart (lib/DeNovoAssembler.R:280-308 —
@@ -173,8 +173,8 @@ def test_two_process_distributed_step(tmp_path):
     # step in THIS process (8 virtual devices; result is placement-free)
     import numpy as np
 
-    from genomeassembler_dev_tpu.parallel.mesh import make_mesh
-    from genomeassembler_dev_tpu.parallel.sharding import make_sim_count_step
+    from genomeassembler_dev.parallel.mesh import make_mesh
+    from genomeassembler_dev.parallel.sharding import make_sim_count_step
 
     import jax
 
@@ -233,12 +233,12 @@ def test_two_process_study_artifact_ownership(tmp_path):
     assert owned[0] | owned[1] == {1, 2, 3, 4}
 
     # the merged tree equals a single-process run, byte for byte
-    from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-    from genomeassembler_dev_tpu.pipeline import results as res_io
-    from genomeassembler_dev_tpu.pipeline.batch_runner import (
+    from genomeassembler_dev.core.querytable import load_default_query_table
+    from genomeassembler_dev.pipeline import results as res_io
+    from genomeassembler_dev.pipeline.batch_runner import (
         run_experiments_batched)
-    from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-    from genomeassembler_dev_tpu.sim.segments import synthetic_segment_store
+    from genomeassembler_dev.pipeline.config import ExperimentConfig
+    from genomeassembler_dev.sim.segments import synthetic_segment_store
 
     segments = synthetic_segment_store(21, 250, 4)
     cfg = ExperimentConfig(seq_len=250, read_len=12, dbg_kmer=9,

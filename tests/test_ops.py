@@ -4,13 +4,13 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genomeassembler_dev_tpu.core.encoding import encode_dna, kmer_code, kmer_codes_np
-from genomeassembler_dev_tpu.ops.edit_distance import batched_levenshtein
-from genomeassembler_dev_tpu.ops.histogram import count_kmers, count_kmers_batched
-from genomeassembler_dev_tpu.ops.ks import batched_ks_2samp
-from genomeassembler_dev_tpu.ops.match import find_first_match
-from genomeassembler_dev_tpu.ops.windows import kmer_window_codes, pack_words
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.core.encoding import encode_dna, kmer_code, kmer_codes_np
+from genomeassembler_dev.ops.edit_distance import batched_levenshtein
+from genomeassembler_dev.ops.histogram import count_kmers, count_kmers_batched
+from genomeassembler_dev.ops.ks import batched_ks_2samp
+from genomeassembler_dev.ops.match import find_first_match
+from genomeassembler_dev.ops.windows import kmer_window_codes, pack_words
+from genomeassembler_dev.spec import reference_semantics as spec
 
 
 def rand_dna(rng, n):
@@ -32,7 +32,7 @@ class TestWindows:
         assert np.asarray(valid).tolist() == [False, False, False, True, True, True]
 
     def test_pack_words_matches_host(self):
-        from genomeassembler_dev_tpu.core.encoding import pack_words_np
+        from genomeassembler_dev.core.encoding import pack_words_np
 
         rng = np.random.default_rng(0)
         for L in (5, 16, 17, 40):
@@ -139,7 +139,7 @@ class TestMatch:
         padded paths, duplicate reads, invalid read slots, and all-T reads /
         windows (whose packed word collides with the 0xFFFFFFFF pad-window
         sentinel in _window_words)."""
-        from genomeassembler_dev_tpu.ops.match import find_first_match_sorted
+        from genomeassembler_dev.ops.match import find_first_match_sorted
 
         rng = np.random.default_rng(11)
         for read_len in (12, 16, 40):  # 1 word w/ slack, exact word, 3 words
@@ -208,7 +208,7 @@ class TestDbgDevice:
          (3, 300, 15, 11), (4, 400, 16, 13)],
     )
     def test_contigs_match_spec(self, seed, glen, rlen, k):
-        from genomeassembler_dev_tpu.dbg.assemble import DENSE_MAX_K, contigs_from_read_codes
+        from genomeassembler_dev.dbg.assemble import DENSE_MAX_K, contigs_from_read_codes
 
         rng = np.random.default_rng(seed)
         g = rand_dna(rng, glen)
@@ -222,11 +222,11 @@ class TestDbgDevice:
 
     @pytest.mark.parametrize("seed", [0, 5, 9])
     def test_dense_sparse_agree(self, seed):
-        from genomeassembler_dev_tpu.dbg.dense import contigs_dense
-        from genomeassembler_dev_tpu.dbg.graph import contigs_sparse
-        from genomeassembler_dev_tpu.dbg.assemble import dedup_contigs
+        from genomeassembler_dev.dbg.dense import contigs_dense
+        from genomeassembler_dev.dbg.graph import contigs_sparse
+        from genomeassembler_dev.dbg.assemble import dedup_contigs
         import jax.numpy as jnp
-        from genomeassembler_dev_tpu.ops.windows import kmer_window_codes
+        from genomeassembler_dev.ops.windows import kmer_window_codes
 
         rng = np.random.default_rng(seed)
         g = rand_dna(rng, 250)
@@ -234,11 +234,9 @@ class TestDbgDevice:
         codes = jnp.asarray(np.stack([encode_dna(r) for r in reads]))
         k = 9
         kc, kv = kmer_window_codes(codes, k)
-        from genomeassembler_dev_tpu.utils.compat import flaky_backend_retry
-
         outs = []
         for fn in (contigs_dense, contigs_sparse):
-            buf, lens, valid, ov, nt, nn = flaky_backend_retry(fn)(kc, kv, k, 300, 512)
+            buf, lens, valid, ov, nt, nn = fn(kc, kv, k, 300, 512)
             outs.append(dedup_contigs(np.asarray(buf), np.asarray(lens),
                                       np.asarray(valid), np.asarray(ov)))
         assert outs[0] == outs[1]
@@ -247,10 +245,10 @@ class TestDbgDevice:
         # the legacy while_loop walk stays as a second implementation;
         # cross-check it against the doubling walk
         import jax.numpy as jnp
-        from genomeassembler_dev_tpu.dbg.graph import build_dbg
-        from genomeassembler_dev_tpu.dbg.traverse import walk_contigs
-        from genomeassembler_dev_tpu.dbg.assemble import dedup_contigs, contigs_from_read_codes
-        from genomeassembler_dev_tpu.ops.windows import kmer_window_codes
+        from genomeassembler_dev.dbg.graph import build_dbg
+        from genomeassembler_dev.dbg.traverse import walk_contigs
+        from genomeassembler_dev.dbg.assemble import dedup_contigs, contigs_from_read_codes
+        from genomeassembler_dev.ops.windows import kmer_window_codes
 
         rng = np.random.default_rng(11)
         g = rand_dna(rng, 150)
@@ -269,7 +267,7 @@ class TestDbgDevice:
 
 class TestDedupMXU:
     def test_bincount_weighted_matches_numpy(self):
-        from genomeassembler_dev_tpu.ops.mxu import bincount_mxu
+        from genomeassembler_dev.ops.mxu import bincount_mxu
 
         rng = np.random.default_rng(3)
         idx = rng.integers(0, 64, 500)
@@ -282,7 +280,7 @@ class TestDedupMXU:
         np.testing.assert_array_equal(got, want)
 
     def test_compact_by_rank_matches_sort(self):
-        from genomeassembler_dev_tpu.ops.mxu import compact_by_rank_mxu
+        from genomeassembler_dev.ops.mxu import compact_by_rank_mxu
 
         rng = np.random.default_rng(4)
         mask = rng.random(4096) < 0.1
@@ -300,7 +298,7 @@ class TestDedupMXU:
         edge items) must produce the identical compacted (ids, nibbles,
         count) triple as the 4^k presence-bitmap builder for every k it can
         dispatch to."""
-        from genomeassembler_dev_tpu.dbg.dense import (
+        from genomeassembler_dev.dbg.dense import (
             _node_table_dense, _node_table_sorted)
 
         rng = np.random.default_rng(11)
@@ -319,7 +317,7 @@ class TestDedupMXU:
                     np.asarray(a[1])[:m], np.asarray(b[1])[:m])
 
     def test_scatter_by_rank_accumulates(self):
-        from genomeassembler_dev_tpu.ops.mxu import scatter_by_rank_mxu
+        from genomeassembler_dev.ops.mxu import scatter_by_rank_mxu
 
         rng = np.random.default_rng(12)
         rank = rng.integers(0, 64, 500).astype(np.int32)
@@ -331,7 +329,7 @@ class TestDedupMXU:
         np.testing.assert_array_equal(np.asarray(got), want)
 
     def test_dedup_with_counts_matches_numpy(self):
-        from genomeassembler_dev_tpu.ops.dedup import (
+        from genomeassembler_dev.ops.dedup import (
             dedup_with_counts, pack_read_codes, unpack_kmer_windows)
 
         rng = np.random.default_rng(5)
@@ -347,7 +345,7 @@ class TestDedupMXU:
         np.testing.assert_array_equal(np.asarray(counts)[: uq.size], cnt)
 
         # window codes from packed reads == window codes from base arrays
-        from genomeassembler_dev_tpu.ops.windows import kmer_window_codes
+        from genomeassembler_dev.ops.windows import kmer_window_codes
         w_direct, _ = kmer_window_codes(jnp.asarray(reads), 8)
         w_packed = unpack_kmer_windows(pack_read_codes(
             jnp.asarray(reads), jnp.ones(300, bool)), 12, 8)
@@ -356,7 +354,7 @@ class TestDedupMXU:
     def test_pack_read_codes_rejects_non_acgt(self):
         # an N (code 255) anywhere in the read must invalidate the whole
         # read — masking with & 3 would silently alias it to T
-        from genomeassembler_dev_tpu.ops.dedup import _SENTINEL, pack_read_codes
+        from genomeassembler_dev.ops.dedup import _SENTINEL, pack_read_codes
 
         reads = np.zeros((3, 12), np.uint8)
         reads[1, 9] = 255  # N past the first octamer
@@ -369,9 +367,9 @@ class TestDedupMXU:
     def test_weighted_count_equals_expanded_count(self):
         # counting distinct reads' windows weighted by multiplicity must
         # equal counting every read's windows (the bench-path contract)
-        from genomeassembler_dev_tpu.ops.dedup import (
+        from genomeassembler_dev.ops.dedup import (
             dedup_with_counts, pack_read_codes, unpack_kmer_windows)
-        from genomeassembler_dev_tpu.ops.mxu import bincount_mxu, count_kmers_mxu
+        from genomeassembler_dev.ops.mxu import bincount_mxu, count_kmers_mxu
 
         rng = np.random.default_rng(6)
         reads = rng.integers(0, 4, (400, 12)).astype(np.uint8)

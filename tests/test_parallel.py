@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from genomeassembler_dev_tpu.core.querytable import TOTAL, load_default_query_table
-from genomeassembler_dev_tpu.models import breakage_model as bm
-from genomeassembler_dev_tpu.parallel import mesh as pmesh
-from genomeassembler_dev_tpu.parallel import sharding as psh
-from genomeassembler_dev_tpu.score.breakscore import breakscore
-from genomeassembler_dev_tpu.sim.segments import synthetic_genome
-from genomeassembler_dev_tpu.core.encoding import encode_dna
+from genomeassembler_dev.core.querytable import TOTAL, load_default_query_table
+from genomeassembler_dev.models import breakage_model as bm
+from genomeassembler_dev.parallel import mesh as pmesh
+from genomeassembler_dev.parallel import sharding as psh
+from genomeassembler_dev.score.breakscore import breakscore
+from genomeassembler_dev.sim.segments import synthetic_genome
+from genomeassembler_dev.core.encoding import encode_dna
 
 
 @pytest.fixture(scope="module")
@@ -110,8 +110,8 @@ class TestShardedBreakscore:
                                        np.asarray(bs.site_counts), rtol=1e-6)
 
     def test_sharded_ks_and_lev(self, table):
-        from genomeassembler_dev_tpu.ops.edit_distance import batched_levenshtein
-        from genomeassembler_dev_tpu.ops.ks import batched_ks_2samp
+        from genomeassembler_dev.ops.edit_distance import batched_levenshtein
+        from genomeassembler_dev.ops.ks import batched_ks_2samp
 
         rng = np.random.default_rng(3)
         mesh = pmesh.make_mesh(seg=4, read=2, tp=1)

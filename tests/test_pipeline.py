@@ -4,12 +4,12 @@ import numpy as np
 import pytest
 import jax
 
-from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-from genomeassembler_dev_tpu.pipeline.assembler import Assembler, RESULT_COLUMNS
-from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu.pipeline import results as res_io
-from genomeassembler_dev_tpu.sim.segments import synthetic_genome
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.core.querytable import load_default_query_table
+from genomeassembler_dev.pipeline.assembler import Assembler, RESULT_COLUMNS
+from genomeassembler_dev.pipeline.config import ExperimentConfig
+from genomeassembler_dev.pipeline import results as res_io
+from genomeassembler_dev.sim.segments import synthetic_genome
+from genomeassembler_dev.spec import reference_semantics as spec
 
 
 @pytest.fixture(scope="module")
@@ -42,8 +42,8 @@ class TestEndToEnd:
         asm, segment, res = run
         cfg = SMALL
         # rebuild the read set exactly as the assembler did
-        from genomeassembler_dev_tpu.core.encoding import encode_dna, decode_dna
-        from genomeassembler_dev_tpu.sim.reads import generate_reads
+        from genomeassembler_dev.core.encoding import encode_dna, decode_dna
+        from genomeassembler_dev.sim.reads import generate_reads
 
         rs = generate_reads(
             jax.random.key(cfg.seed), encode_dna(segment), table,
@@ -120,8 +120,8 @@ class TestLargeGridRow:
         res = asm.run_experiment(segment)
         assert res.n_solutions > 0
 
-        from genomeassembler_dev_tpu.core.encoding import encode_dna, decode_dna
-        from genomeassembler_dev_tpu.sim.reads import generate_reads
+        from genomeassembler_dev.core.encoding import encode_dna, decode_dna
+        from genomeassembler_dev.sim.reads import generate_reads
 
         rs = generate_reads(jax.random.key(cfg.seed), encode_dna(segment), table,
                             cfg.read_len, cfg.coverage_target, cfg.kmer)
@@ -159,9 +159,9 @@ class TestReadSetReplay:
     def test_replay_reproduces_run(self, table, tmp_path):
         """SURVEY §7.1 equality gate: a stored read set replayed through the
         pipeline reproduces the original run bit-for-bit."""
-        from genomeassembler_dev_tpu.core.encoding import encode_dna
-        from genomeassembler_dev_tpu.sim.reads import generate_reads
-        from genomeassembler_dev_tpu.sim.reads_io import (
+        from genomeassembler_dev.core.encoding import encode_dna
+        from genomeassembler_dev.sim.reads import generate_reads
+        from genomeassembler_dev.sim.reads_io import (
             load_read_set_npz, save_read_set_npz,
         )
 

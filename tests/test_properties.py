@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu.core.querytable import QueryTable
-from genomeassembler_dev_tpu.merge import native
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.core.querytable import QueryTable
+from genomeassembler_dev.merge import native
+from genomeassembler_dev.spec import reference_semantics as spec
 
 
 def rand_dna(rng, n):

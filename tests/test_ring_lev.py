@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genomeassembler_dev_tpu.core.encoding import encode_dna
-from genomeassembler_dev_tpu.ops.edit_distance_ring import make_ring_levenshtein
-from genomeassembler_dev_tpu.parallel.mesh import make_mesh
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.core.encoding import encode_dna
+from genomeassembler_dev.ops.edit_distance_ring import make_ring_levenshtein
+from genomeassembler_dev.parallel.mesh import make_mesh
+from genomeassembler_dev.spec import reference_semantics as spec
 
 # shard_map wavefront sweeps over the virtual mesh take tens of seconds per
 # parametrization; the full matrix is full-lane only. test_ring_fast_smoke
@@ -59,7 +59,7 @@ def test_matches_spec(mode, n_shard):
 
 @pytest.mark.slow
 def test_matches_single_device_kernel():
-    from genomeassembler_dev_tpu.ops.edit_distance import batched_levenshtein
+    from genomeassembler_dev.ops.edit_distance import batched_levenshtein
 
     mesh = make_mesh(seg=1, read=8, tp=1)
     fn = make_ring_levenshtein(mesh, axis="read", mode="NW")
@@ -81,7 +81,7 @@ class TestMyersRing:
     @pytest.mark.parametrize("mode", ["NW", "HW"])
     @pytest.mark.parametrize("n_shard", [2, 4])
     def test_matches_spec(self, mode, n_shard):
-        from genomeassembler_dev_tpu.ops.edit_distance_ring import (
+        from genomeassembler_dev.ops.edit_distance_ring import (
             make_ring_levenshtein_myers,
         )
 
@@ -103,7 +103,7 @@ class TestMyersRing:
         assert out.tolist() == expect
 
     def test_matches_prefix_min_ring(self):
-        from genomeassembler_dev_tpu.ops.edit_distance_ring import (
+        from genomeassembler_dev.ops.edit_distance_ring import (
             make_ring_levenshtein, make_ring_levenshtein_myers,
         )
 

@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu.core.rng import (
+from genomeassembler_dev.core.rng import (
     MT19937,
     UniformIntDistribution,
     _mt_refill_exact,

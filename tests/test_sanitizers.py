@@ -6,7 +6,7 @@ Two lanes the reference never had:
     out-of-bounds, use-after-free, and UB in the C ABI pointer plumbing.
   * jax.experimental.checkify over the device scoring path — catches
     out-of-bounds gathers/scatters and division errors inside jit, which
-    silently clamp on TPU in normal execution.
+    silently clamp on an accelerator in normal execution.
 """
 
 from __future__ import annotations
@@ -53,8 +53,8 @@ class TestNativeASan:
         script = textwrap.dedent("""
             import sys
             sys.path.insert(0, %r)
-            from genomeassembler_dev_tpu.merge import native
-            from genomeassembler_dev_tpu.spec import reference_semantics as spec
+            from genomeassembler_dev.merge import native
+            from genomeassembler_dev.spec import reference_semantics as spec
             assert native.available(), "instrumented engine failed to load"
 
             contigs = ["ACGTACGTAC", "GTACGGGTTT", "TTTACGTACG", "CCCCACGTAC"]
@@ -83,18 +83,18 @@ class TestNativeASan:
 
 class TestCheckifyLane:
     def test_breakscore_checkified(self):
-        """Index/div checks over the device scorer: a silent TPU-style
-        clamped gather would surface here as a checkify error."""
+        """Index/div checks over the device scorer: a silently clamped
+        gather would surface here as a checkify error."""
         from jax.experimental import checkify
 
-        from genomeassembler_dev_tpu.core.encoding import encode_dna
-        from genomeassembler_dev_tpu.core.querytable import (
+        from genomeassembler_dev.core.encoding import encode_dna
+        from genomeassembler_dev.core.querytable import (
             load_default_query_table)
-        from genomeassembler_dev_tpu.pipeline.assembler import (
+        from genomeassembler_dev.pipeline.assembler import (
             pack_strings, pad_reads)
-        from genomeassembler_dev_tpu.score.breakscore import breakscore
-        from genomeassembler_dev_tpu.sim.reads import dedup_reads
-        from genomeassembler_dev_tpu.sim.segments import synthetic_genome
+        from genomeassembler_dev.score.breakscore import breakscore
+        from genomeassembler_dev.sim.reads import dedup_reads
+        from genomeassembler_dev.sim.segments import synthetic_genome
 
         table = load_default_query_table()
         g = synthetic_genome(3, 200)
@@ -126,10 +126,10 @@ class TestCheckifyLane:
         dbg/dense.py:185-209), which index_checks would flag by design."""
         from jax.experimental import checkify
 
-        from genomeassembler_dev_tpu.dbg.dense import contigs_dense
-        from genomeassembler_dev_tpu.ops.windows import kmer_window_codes
-        from genomeassembler_dev_tpu.core.encoding import encode_dna
-        from genomeassembler_dev_tpu.sim.segments import synthetic_genome
+        from genomeassembler_dev.dbg.dense import contigs_dense
+        from genomeassembler_dev.ops.windows import kmer_window_codes
+        from genomeassembler_dev.core.encoding import encode_dna
+        from genomeassembler_dev.sim.segments import synthetic_genome
 
         g = synthetic_genome(4, 150)
         reads = np.stack([encode_dna(g[i : i + 12]) for i in range(0, 138, 3)])

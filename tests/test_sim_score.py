@@ -5,12 +5,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from genomeassembler_dev_tpu.core.encoding import encode_dna
-from genomeassembler_dev_tpu.core.querytable import TOTAL, QueryTable, load_default_query_table
-from genomeassembler_dev_tpu.score.breakscore import breakscore
-from genomeassembler_dev_tpu.sim import reads as sim_reads
-from genomeassembler_dev_tpu.sim import segments as sim_segments
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.core.encoding import encode_dna
+from genomeassembler_dev.core.querytable import TOTAL, QueryTable, load_default_query_table
+from genomeassembler_dev.score.breakscore import breakscore
+from genomeassembler_dev.sim import reads as sim_reads
+from genomeassembler_dev.sim import segments as sim_segments
+from genomeassembler_dev.spec import reference_semantics as spec
 
 
 def rand_dna(rng, n):
@@ -62,7 +62,7 @@ class TestSegments:
         """Repeat-planted segments must produce multi-contig dBGs at the
         study's largest own-grid k (15) — uniform-random 1 kb sequences have
         no repeats there and the study degenerates to single solutions."""
-        from genomeassembler_dev_tpu.spec import reference_semantics as spec
+        from genomeassembler_dev.spec import reference_semantics as spec
 
         store = sim_segments.synthetic_segment_store(1234, 1000, 4, repeats=True)
         store2 = sim_segments.synthetic_segment_store(1234, 1000, 4, repeats=True)
@@ -116,9 +116,9 @@ class TestSegments:
         cycle; any cap overshoot surfaces via the overflow flag / ladder,
         never a hang) and agree with the executable spec; the biased walker
         must cap the looping walk and flag overflow instead of hanging."""
-        from genomeassembler_dev_tpu.dbg.assemble import contigs_from_read_codes
-        from genomeassembler_dev_tpu.dbg.biased import biased_contigs_dense
-        from genomeassembler_dev_tpu.ops.windows import kmer_window_codes
+        from genomeassembler_dev.dbg.assemble import contigs_from_read_codes
+        from genomeassembler_dev.dbg.biased import biased_contigs_dense
+        from genomeassembler_dev.ops.windows import kmer_window_codes
 
         k, rl = 9, 12
         seg = sim_segments.plant_repeats(
@@ -190,7 +190,7 @@ class TestReadSim:
         codes = jnp.asarray(encode_dna(g))
         probs = np.zeros(65536, np.float32)
         # only allow the octamer at position 100
-        from genomeassembler_dev_tpu.core.encoding import kmer_code as kc
+        from genomeassembler_dev.core.encoding import kmer_code as kc
 
         probs[kc(g[100:108])] = 1.0
         rs = sim_reads.simulate_reads(jax.random.key(1), codes, jnp.asarray(probs), 12, 256)
@@ -238,7 +238,7 @@ class TestBreakscoreDevice:
         plen = np.array([len(s) for s in sols], np.int32)
         for i, s in enumerate(sols):
             pmat[i, : len(s)] = encode_dna(s)
-        from genomeassembler_dev_tpu.sim.reads import dedup_reads
+        from genomeassembler_dev.sim.reads import dedup_reads
 
         rcodes = np.stack([encode_dna(r) for r in reads])
         uniq, counts = dedup_reads(rcodes, np.ones(len(reads), bool))
@@ -279,7 +279,7 @@ class TestBreakscoreDevice:
 
 
 def test_dedup_drops_invalid_base_reads():
-    from genomeassembler_dev_tpu.sim.reads import dedup_reads
+    from genomeassembler_dev.sim.reads import dedup_reads
 
     codes = np.array([[0, 1, 2], [0, 255, 2], [0, 1, 2]], np.uint8)
     valid = np.ones(3, bool)

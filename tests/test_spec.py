@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from genomeassembler_dev_tpu.core.querytable import QueryTable, TOTAL
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.core.querytable import QueryTable, TOTAL
+from genomeassembler_dev.spec import reference_semantics as spec
 
 
 def sliding_kmers(s: str, k: int) -> list[str]:

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-from genomeassembler_dev_tpu.parallel.mesh import make_mesh
-from genomeassembler_dev_tpu.parallel.table_sharding import make_sharded_table_lookup
+from genomeassembler_dev.core.querytable import load_default_query_table
+from genomeassembler_dev.parallel.mesh import make_mesh
+from genomeassembler_dev.parallel.table_sharding import make_sharded_table_lookup
 
 
 @pytest.fixture(scope="module")

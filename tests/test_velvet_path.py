@@ -4,16 +4,16 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-from genomeassembler_dev_tpu.ops.ks import batched_ks_2samp_masked
-from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu.pipeline.velvet import (
+from genomeassembler_dev.core.querytable import load_default_query_table
+from genomeassembler_dev.ops.ks import batched_ks_2samp_masked
+from genomeassembler_dev.pipeline.config import ExperimentConfig
+from genomeassembler_dev.pipeline.velvet import (
     VELVET_RESULT_COLUMNS,
     IndustryAssembler,
     covered_fraction,
 )
-from genomeassembler_dev_tpu.sim.segments import synthetic_genome
-from genomeassembler_dev_tpu.spec import reference_semantics as spec
+from genomeassembler_dev.sim.segments import synthetic_genome
+from genomeassembler_dev.spec import reference_semantics as spec
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +102,7 @@ class TestIndustryPath:
         """save_result must persist the velvet path's own column set —
         including path_prob_dist_startpos (lib/BreakageScorer.cpp:343-353),
         which a RESULT_COLUMNS filter silently dropped."""
-        from genomeassembler_dev_tpu.pipeline.results import (
+        from genomeassembler_dev.pipeline.results import (
             load_result_columns, save_result, solutions_path)
 
         cfg = ExperimentConfig(
@@ -207,12 +207,12 @@ class TestReadsIO:
     def test_fasta_contract(self, tmp_path, table):
         import jax
 
-        from genomeassembler_dev_tpu.core.encoding import encode_dna
-        from genomeassembler_dev_tpu.sim.reads import generate_reads
-        from genomeassembler_dev_tpu.sim.reads_io import (
+        from genomeassembler_dev.core.encoding import encode_dna
+        from genomeassembler_dev.sim.reads import generate_reads
+        from genomeassembler_dev.sim.reads_io import (
             load_read_set_npz, save_read_fastas, save_read_set_npz,
         )
-        from genomeassembler_dev_tpu.sim.segments import read_fasta
+        from genomeassembler_dev.sim.segments import read_fasta
 
         cfg = ExperimentConfig(seq_len=200, read_len=12, coverage_target=5.0, seed=7)
         g = synthetic_genome(2, 200)
@@ -227,7 +227,7 @@ class TestReadsIO:
         # read_2 is the reverse complement of read_1
         k1 = sorted(r1)[0]
         k2 = k1[:-1] + "2"
-        from genomeassembler_dev_tpu.core.encoding import encode_dna as enc, decode_dna, reverse_complement
+        from genomeassembler_dev.core.encoding import encode_dna as enc, decode_dna, reverse_complement
 
         assert r2[k2] == decode_dna(reverse_complement(enc(r1[k1])))
         # names carry absolute 1-based coordinates
@@ -246,9 +246,9 @@ class TestProbabilityProfile:
         computation."""
         import jax.numpy as jnp
 
-        from genomeassembler_dev_tpu.core.encoding import encode_dna, kmer_code
-        from genomeassembler_dev_tpu.ops.windows import kmer_window_codes
-        from genomeassembler_dev_tpu.pipeline.assembler import pack_strings
+        from genomeassembler_dev.core.encoding import encode_dna, kmer_code
+        from genomeassembler_dev.ops.windows import kmer_window_codes
+        from genomeassembler_dev.pipeline.assembler import pack_strings
 
         rng = np.random.default_rng(3)
         sols = ["".join(rng.choice(list("ACGT"), size=n)) for n in (20, 35, 50)]

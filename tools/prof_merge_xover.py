@@ -4,7 +4,7 @@ Measures assemble_native (threaded C++) against assemble_device (one-jit
 hash-chain ensemble) over contig count C and ordering count O, asserts
 set-identical outputs, and prints the crossover table for studies/.
 
-Run on the TPU (device path) — the native side is host-only either way.
+Run on the GPU (device path) — the native side is host-only either way.
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ def make_contigs(rng, C: int, mean_len: int, k: int) -> list[str]:
 
 
 def main():
-    from genomeassembler_dev_tpu.merge.device import assemble_device
-    from genomeassembler_dev_tpu.merge import native
+    from genomeassembler_dev.merge.device import assemble_device
+    from genomeassembler_dev.merge import native
 
     k = 9
     rng = np.random.default_rng(0)

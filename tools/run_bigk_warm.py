@@ -3,7 +3,7 @@
 Runs BASELINE config 1 (50 kb / 150 bp / k=31) twice in ONE process —
 cold (compile-inclusive) then warm (every jit cached) — for both the
 standard and the biased traversal, and writes per-stage timings to
-studies/bigk_warm_r4.json. Run on the TPU.
+studies/bigk_warm.json. Run on the GPU.
 """
 
 from __future__ import annotations
@@ -17,9 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    from genomeassembler_dev_tpu.pipeline.assembler import Assembler
-    from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-    from genomeassembler_dev_tpu.sim.segments import synthetic_segment_store
+    from genomeassembler_dev.pipeline.assembler import Assembler
+    from genomeassembler_dev.pipeline.config import ExperimentConfig
+    from genomeassembler_dev.sim.segments import synthetic_segment_store
 
     seg = synthetic_segment_store(1234, 50000, 1).seqs[0]
     out = {}
@@ -46,7 +46,7 @@ def main():
             print(f"{traversal} {label}: {dt:.1f} s, "
                   f"{res.n_solutions} solutions", flush=True)
         out[traversal] = runs
-    out_path = os.environ.get("GA_BIGK_OUT", "studies/bigk_warm_r4.json")
+    out_path = os.environ.get("GA_BIGK_OUT", "studies/bigk_warm.json")
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out, indent=1))

@@ -1,15 +1,14 @@
 """Commit a scaling methodology record on the virtual 8-device CPU mesh.
 
-Real multi-host TPU pods are unavailable in this environment (SURVEY §2.2 /
-VERDICT r4 weak #6), so this tool measures the FULL production per-experiment
+This tool measures the FULL production per-experiment
 step — run_experiments_batched: simulate -> dBG+walk -> merge -> score ->
 KS -> Levenshtein — at 1/2/4/8 virtual devices (seg data parallelism) plus a
 (seg x read x tp) mesh exercising the collective score step, and records
 wall-clock + parallel efficiency to studies/scaling_virtual.json.
 
 CPU-mesh timings are a correctness-of-methodology record (the shard_map
-programs, collectives, and sharding layouts are identical to what a TPU pod
-would run over ICI); absolute numbers are not TPU claims and the JSON says so.
+programs, collectives, and sharding layouts are the ones a multi-device run
+uses); absolute numbers are not device claims and the JSON says so.
 
 Run: python tools/run_scaling_virtual.py   (forces JAX_PLATFORMS=cpu, 8 dev)
 """
@@ -26,11 +25,11 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from genomeassembler_dev_tpu.core.querytable import load_default_query_table
-from genomeassembler_dev_tpu.parallel.mesh import make_mesh
-from genomeassembler_dev_tpu.pipeline.batch_runner import run_experiments_batched
-from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
-from genomeassembler_dev_tpu.sim.segments import synthetic_genome
+from genomeassembler_dev.core.querytable import load_default_query_table
+from genomeassembler_dev.parallel.mesh import make_mesh
+from genomeassembler_dev.pipeline.batch_runner import run_experiments_batched
+from genomeassembler_dev.pipeline.config import ExperimentConfig
+from genomeassembler_dev.sim.segments import synthetic_genome
 
 
 def main():
@@ -77,12 +76,11 @@ def _write(cfg, B, points):
             p["experiments_per_s"] / (base * n), 3)
 
     out = {
-        "note": ("virtual 8-device CPU mesh; methodology record for the "
-                 "unavailable multi-host TPU run — shard_map programs, "
-                 "psum/all_to_all collectives, and sharding layouts are the "
-                 "production ones; absolute times are CPU-bound (2 host "
-                 "cores oversubscribed 8 virtual devices) and are NOT TPU "
-                 "performance claims"),
+        "note": ("virtual 8-device CPU mesh; methodology record — "
+                 "shard_map programs, psum/all_to_all collectives, and "
+                 "sharding layouts are the production ones; absolute times "
+                 "are CPU-bound (2 host cores oversubscribed 8 virtual "
+                 "devices) and are NOT device performance claims"),
         "config": {"seq_len": cfg.seq_len, "read_len": cfg.read_len,
                    "dbg_kmer": cfg.dbg_kmer, "n_orderings": cfg.n_orderings,
                    "batch": B},

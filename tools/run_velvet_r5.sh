@@ -12,7 +12,7 @@ W=studies/velvet_r5
 run_row() {
   rl=$1; k=$2
   echo "=== row ${rl}:${k} $(date +%T) ==="
-  python -m genomeassembler_dev_tpu.cli study-velvet --workdir $W \
+  python -m genomeassembler_dev.cli study-velvet --workdir $W \
     --seq-len 50000 --total-iters 200 --grid ${rl}:${k} \
     --contigs-dir $W/contigs_k${k} --verbose 2>&1 | tail -2
 }
@@ -32,8 +32,8 @@ import csv, os
 rows_sum, rows_all = [], []
 grid = [(12,11),(14,13),(16,13),(18,15),(20,17),(25,19),(40,37)]
 import numpy as np
-from genomeassembler_dev_tpu.pipeline import results as res_io
-from genomeassembler_dev_tpu.pipeline.config import ExperimentConfig
+from genomeassembler_dev.pipeline import results as res_io
+from genomeassembler_dev.pipeline.config import ExperimentConfig
 base = ExperimentConfig(seq_len=50000, coverage_target=40.0, kmer=8,
                         seed=1234, industry_standard=True)
 for rl, k in grid:

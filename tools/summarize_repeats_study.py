@@ -10,7 +10,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
-from genomeassembler_dev_tpu.pipeline.experiments import study_statistics
+from genomeassembler_dev.pipeline.experiments import study_statistics
 
 workdir = sys.argv[1] if len(sys.argv) > 1 else "studies/own_repeats"
 all_csv = os.path.join(workdir, "IndustryModel_False", "results_all.csv")
